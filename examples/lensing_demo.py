@@ -11,18 +11,13 @@ This is the problem family the reference was built for (arXiv:2112.09354
 batched variable projection + Newton-CG polish (see docs/models.md).
 
 Run:  python examples/lensing_demo.py  [--n 128 --nsims 64 --theta-true 0.3]
-(CPU-friendly at the default n=64; use n=256+ on a TPU.)
+(CPU-friendly at the default n=64; use n=256+ on a GPU.)
 """
 
 import argparse
 import os
-import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-
 import sys
+import time
 
 # allow running straight from a repo checkout: `python examples/<demo>.py`
 sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -33,6 +28,61 @@ import numpy as np
 
 from muse_tpu import MuseResult, get_H, get_J, muse_fit
 from muse_tpu.models.lensing import lensing_problem
+from muse_tpu.utils.compile_cache import enable_compile_cache
+
+
+def fit_settings(n):
+    """``muse_fit`` keywords of the shipped configuration at grid ``n``.
+
+    alpha damps the Newton steps: with the crude iteration-1 H⁻¹ the
+    default 0.7 overshoots θ into the strongly-lensed regime where
+    large-n MAP solves grind at the f32 resolution floor (measured at
+    512²: an overshoot to θ≈1.7 froze all 17 MAPs and the garbage score
+    spuriously "converged").
+
+    Flagship sizes (n ≥ 256) need the robust outer-loop configuration
+    (measured at 512², truth 0.3): the sims-variance H⁻¹ underestimates
+    the true score slope ~30× away from the root, so undamped steps
+    limit-cycle against the clamp — Broyden secant updates
+    (Hinv_update="broyden", reference src/muse.jl:192-205) learn the
+    real slope; a ±0.3 step clamp (the regularize hook; trust-region
+    practice for log-amplitude parameters) keeps θ out of the
+    strongly-lensed regime where lockstep MAPs grind; and grad_z_atol
+    3e-3 tightens the MAPs so per-sim basin hopping doesn't make the CRN
+    score ragged in θ.  The 256² threshold is calibration-driven: across
+    8 data realizations the plain (alpha=0.4, sims-H⁻¹, unclamped)
+    branch diverged on its first draw (θ walked to 3.5 in two steps off
+    a 30×-underestimated slope), while the robust branch recovers θ to
+    within ~1σ (BENCHMARKS.md "Lensing σθ calibration at 256²").
+
+    theta_rtol 3e-4, not the reference's 1e-1 default: the convergence
+    metric is σ-scaled (√(−Δθᵀ H⁻¹_post Δθ) ≈ |Δθ|·σ_post), and with
+    this family's damped+clamped steps the march has small-step episodes
+    that fool even the two-step rule (BENCHMARKS.md "Round-5 full 8-rep
+    study": 3e-3 still froze some realizations).  3e-4 costs ~2× the
+    iterations of a 3e-3 stop and ends fits at genuine stationarity.
+
+    max_batch bounds the lanes of one device program.  The 1024² width
+    of 3 was chosen on the earlier accelerator, where widths 9 and 17 of
+    this program were value-corrupted; ``chip_smoke.py`` certifies it
+    and the unchunked width on the GPU.
+    """
+    big = n >= 256
+    prev_th = {"v": np.zeros(1)}           # θ₀ of the fit
+
+    def clamp_step(th_t):
+        th_t = np.clip(th_t, prev_th["v"] - 0.3, prev_th["v"] + 0.3)
+        prev_th["v"] = np.asarray(th_t)
+        return th_t
+
+    return dict(alpha=(0.4 if not big else 0.3),
+                Hinv_update=("sims" if not big else "broyden"),
+                regularize=(None if not big else clamp_step),
+                grad_z_atol=(3e-3 if big else 1e-2),
+                theta_rtol=(1e-1 if not big else 3e-4),
+                maxsteps=(50 if not big else 30),
+                max_batch=(None if n < 128 else
+                           (33 if not big else (9 if n < 1024 else 3))))
 
 
 def main():
@@ -43,65 +93,16 @@ def main():
     ap.add_argument("--progress", action="store_true")
     args = ap.parse_args()
 
+    enable_compile_cache()
     prob = lensing_problem(n=args.n, theta_true=args.theta_true,
                            data_key=jax.random.PRNGKey(7))
-
-    # alpha damps the Newton steps: with the crude iteration-1 H⁻¹ the
-    # default 0.7 overshoots θ into the strongly-lensed regime where
-    # large-n MAP solves grind at the f32 resolution floor (measured at
-    # 512²: an overshoot to θ≈1.7 froze all 17 MAPs and the garbage
-    # score spuriously "converged").  The regularize hook adds the
-    # standard trust-region guard for log-amplitude parameters: clamp
-    # each θ-step to ±0.3.  max_batch bounds per-program device time.
-    prev_th = {"v": np.zeros(1)}           # θ₀ of the fit below
-
-    def clamp_step(th_t):
-        th_t = np.clip(th_t, prev_th["v"] - 0.3, prev_th["v"] + 0.3)
-        prev_th["v"] = np.asarray(th_t)
-        return th_t
-
-    # Flagship sizes (n ≥ 256) need the robust outer-loop configuration
-    # (measured at 512², truth 0.3): the sims-variance H⁻¹ underestimates
-    # the true score slope ~30× away from the root, so undamped steps
-    # limit-cycle against the clamp — Broyden secant updates
-    # (Hinv_update="broyden", reference src/muse.jl:192-205) learn the
-    # real slope; the ±0.3 step clamp keeps θ out of the strongly-lensed
-    # regime where lockstep MAPs grind (trust-region practice for
-    # log-amplitude parameters); and grad_z_atol 3e-3 tightens the MAPs
-    # so per-sim basin hopping doesn't make the CRN score ragged in θ.
-    # The 256² threshold is calibration-driven: across 8 data
-    # realizations the plain (alpha=0.4, sims-H⁻¹, unclamped) branch
-    # diverged on its first draw (θ walked to 3.5 in two steps off a
-    # 30×-underestimated slope), while the robust branch recovers θ to
-    # within ~1σ (BENCHMARKS.md "Lensing σθ calibration at 256²").
-    # theta_rtol 3e-4, not the reference's 1e-1 default: the convergence
-    # metric is σ-scaled (√(−Δθᵀ H⁻¹_post Δθ) ≈ |Δθ|·σ_post), and with
-    # this family's damped+clamped steps the march has small-step
-    # episodes that fool even the two-step rule: the round-4 study
-    # measured θ̂ stalled at 0.03-0.08 against truth 0.3 under 3e-2, and
-    # the round-5 64-sim 8-rep study caught 3e-3 STILL freezing some
-    # realizations (rep 4: θ̂ 0.027 at 6 iterations vs its true CRN root
-    # 0.109 at 20 under a 2e-4 stop — BENCHMARKS.md "Round-5 full 8-rep
-    # study").  3e-4 costs ~2× the iterations of a 3e-3 stop and ends
-    # fits at genuine stationarity (|Δθ| flat, g_post stable).
     big = args.n >= 256
-    atol = 3e-3 if big else 1e-2
+    kw = fit_settings(args.n)
+    atol = kw["grad_z_atol"]
     t0 = time.perf_counter()
     res = MuseResult()
     muse_fit(res, prob, 0.0, nsims=args.nsims, z0=prob.suggested_z0,
-             alpha=(0.4 if not big else 0.3),
-             Hinv_update=("sims" if not big else "broyden"),
-             regularize=(None if not big else clamp_step),
-             grad_z_atol=atol, theta_rtol=(1e-1 if not big else 3e-4),
-             maxsteps=(50 if not big else 30),
-             # max_batch 3 at n >= 1024: the certified-width survey
-             # (BENCHMARKS.md) measured width 3 fastest per lane AND
-             # found widths 9/17 value-corrupted by the platform there —
-             # certification would catch and repair 9, but routing to a
-             # measured-good width avoids the detour entirely.
-             max_batch=(None if args.n < 128 else
-                        (33 if not big else (9 if args.n < 1024 else 3))),
-             key=jax.random.PRNGKey(1), progress=args.progress)
+             key=jax.random.PRNGKey(1), progress=args.progress, **kw)
     t_fit = time.perf_counter() - t0
 
     # score reuse from the fit is the intended design here (see

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from muse_tpu import SimpleMuseProblem, muse
+from muse_tpu.utils.compile_cache import enable_compile_cache
 
 
 def build_problem(dim, data_key):
@@ -85,6 +86,7 @@ def main():
     ap.add_argument("--nsims", type=int, default=100)
     ap.add_argument("--hmc-samples", type=int, default=2000)
     args = ap.parse_args()
+    enable_compile_cache()
 
     prob, x_obs = build_problem(args.dim, jax.random.PRNGKey(42))
 

@@ -1,26 +1,21 @@
 """North-star accuracy + wall-clock validation (BASELINE.md config 5-lite).
 
 512 sims × 1024² GRF amplitude inference at high SNR (σ_noise = 0.01,
-≈30k informative modes), single chip: full muse_fit → get_J (free from
+≈30k informative modes), single device: full muse_fit → get_J (free from
 the fit sims) → implicit-diff get_H pipeline, validated against the
 EXACT closed-form oracles (marginal MLE θ̂ and Fisher σ — MUSE is exact
 for this Gaussian problem, arXiv:2112.09354 §2).
 
-Targets (BASELINE.md): |θ̂ − θ̂_MLE| < 1e-3, σ/σ_Fisher ≈ 1, wall-clock
-"minutes on a v4-32" — measured here on ONE v5e chip.
+Targets (BASELINE.md): |θ̂ − θ̂_MLE| < 1e-3, σ/σ_Fisher ≈ 1.
+``chip_smoke.py`` runs :func:`northstar_pipeline` at the full size.
 
 Run:  python examples/northstar_grf.py  [--nsims 512 --n 1024]
 """
 
 import argparse
 import os
-import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-
 import sys
+import time
 
 # allow running straight from a repo checkout: `python examples/<demo>.py`
 sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -32,6 +27,7 @@ import numpy as np
 from muse_tpu import MuseResult, get_H, get_J, muse_fit
 from muse_tpu.models.grf import (grf_marginal_mle, grf_problem,
                                  grf_spectral_problem)
+from muse_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main():
@@ -50,9 +46,7 @@ def main():
                          "at ~1e-8")
     ap.add_argument("--repeat", action="store_true",
                     help="run the pipeline twice (one CompiledProblem) "
-                         "and report the second, all-compiled pass — "
-                         "the remote-compile TPU path makes first-pass "
-                         "walls noisy by ±60s of recompilation")
+                         "and report the second, all-compiled pass")
     ap.add_argument("--alpha", type=float, default=1.0,
                     help="outer Newton damping (reference default 0.7, "
                          "src/muse.jl:118). The sims-variance H⁻¹ is "
@@ -69,6 +63,7 @@ def main():
                          "families (see examples/lensing_demo.py)")
     args = ap.parse_args()
 
+    enable_compile_cache()
     build = (grf_spectral_problem if args.representation == "spectral"
              else grf_problem)
     prob = build(n=args.n, sigma_noise=0.01, solver="cg",
@@ -85,41 +80,56 @@ def main():
         run(args, prob, comp, mle, fisher_sig)
 
 
-def run(args, prob, comp, mle, fisher_sig):
+def northstar_pipeline(prob, comp, *, nsims, max_batch, hinv="sims",
+                       alpha=1.0, mesh=None):
+    """muse_fit → get_J → implicit-diff get_H with the exact preconditioner.
+
+    Returns ``(result, walls)`` with the fit, J and H wall times in
+    seconds (first calls include compilation)."""
     t0 = time.perf_counter()
     res = MuseResult()
     # θ_rtol must support the accuracy target asserted below: the
     # convergence metric is the θ-step in σ units, so 1e-3 accuracy in a
     # σ≈8e-3 posterior needs steps driven well below 0.1σ
-    muse_fit(res, prob, 0.5, nsims=args.nsims, max_batch=args.max_batch,
-             theta_rtol=1e-5, Hinv_update=args.hinv, alpha=args.alpha,
+    muse_fit(res, prob, 0.5, nsims=nsims, max_batch=max_batch,
+             theta_rtol=1e-5, Hinv_update=hinv, alpha=alpha, mesh=mesh,
              compiled=comp, key=jax.random.PRNGKey(1))
     t_fit = time.perf_counter() - t0
     # gs reused from the fit — the calibrated design here (BENCHMARKS.md
     # "Which J is the right one"), so silence the defensive reuse warning
-    get_J(res, prob, nsims=args.nsims, max_batch=args.max_batch,
+    get_J(res, prob, nsims=nsims, max_batch=max_batch, mesh=mesh,
           compiled=comp, key=jax.random.PRNGKey(1), warn_reuse=False)
     t_j = time.perf_counter() - t0 - t_fit
     # the exact Fourier-diagonal z-Hessian inverse (the reference's Pl
     # hook, src/muse.jl:312) collapses the per-column CG to O(1) iterations
-    get_H(res, prob, nsims=max(8, args.nsims // 10), implicit_diff=True,
+    get_H(res, prob, nsims=max(8, nsims // 10), implicit_diff=True,
           implicit_diff_precond=prob.suggested_h_precond,
-          max_batch=args.max_batch, compiled=comp,
+          max_batch=max_batch, mesh=mesh, compiled=comp,
           key=jax.random.PRNGKey(1))
     t_total = time.perf_counter() - t0
+    return res, {"fit": t_fit, "J": t_j, "H": t_total - t_fit - t_j}
 
+
+def accuracy_target(fisher_sig, nsims):
+    """Gate on |θ̂ − θ̂_MLE|.  BASELINE.json's 1e-3 north-star target is
+    calibrated for the flagship size (1024², ≥512 sims) where σ_Fisher ≈
+    8e-3; at smaller configs θ̂ and the MLE legitimately differ by the
+    MUSE-vs-MLE estimator gap, O(σ/√nsims) — scale the gate accordingly."""
+    return max(1e-3, 2.0 * fisher_sig / np.sqrt(nsims))
+
+
+def run(args, prob, comp, mle, fisher_sig):
+    res, walls = northstar_pipeline(prob, comp, nsims=args.nsims,
+                                    max_batch=args.max_batch,
+                                    hinv=args.hinv, alpha=args.alpha)
     th, sig = float(res.theta[0]), float(res.sigma[0])
-    # BASELINE.json's 1e-3 north-star target is calibrated for the
-    # flagship size (1024², ≥512 sims) where σ_Fisher ≈ 8e-3; at smaller
-    # configs θ̂ and the MLE legitimately differ by the MUSE-vs-MLE
-    # estimator gap, O(σ/√nsims) — scale the gate accordingly.
-    target = max(1e-3, 2.0 * fisher_sig / np.sqrt(args.nsims))
+    target = accuracy_target(fisher_sig, args.nsims)
     print(f"θ̂ − θ̂_MLE(exact)  = {th - mle:+.2e}   (target < {target:.0e})")
     print(f"σ / σ_Fisher(exact) = {sig / fisher_sig:.4f}  (target ≈ 1)")
     print(f"J = {float(res.J[0, 0]):.0f}  H = {float(res.H[0, 0]):.0f} "
           f"(equal at θ̂ up to MC noise)")
-    print(f"wall: fit {t_fit:.0f}s + J {t_j:.0f}s + H "
-          f"{t_total - t_fit - t_j:.0f}s = {t_total:.0f}s "
+    print(f"wall: fit {walls['fit']:.0f}s + J {walls['J']:.0f}s + H "
+          f"{walls['H']:.0f}s = {sum(walls.values()):.0f}s "
           f"({len(res.history)} iterations, {args.nsims} sims, {args.n}²)")
     assert abs(th - mle) < target, "accuracy target missed"
     assert 0.9 < sig / fisher_sig < 1.1, "σ target missed"

@@ -1,4 +1,4 @@
-"""muse_tpu — a TPU-native MUSE (Marginal Unbiased Score Expansion) engine.
+"""muse_tpu — an accelerator MUSE (Marginal Unbiased Score Expansion) engine.
 
 A from-scratch JAX/XLA re-design of the capabilities of
 ``marius311/MuseInference.jl`` (Millea & Seljak 2021, arXiv:2112.09354;
@@ -12,11 +12,11 @@ Architecture (vs the reference's Julia AD + Optim + Distributed stack):
     advancing all sims in lockstep (``muse_tpu.ops.lbfgs``);
   * AD backends (ForwardDiff/Zygote) → ``jax.grad`` / ``jax.jvp``;
   * Distributed worker pools → a device mesh sharding the sims axis
-    (``muse_tpu.parallel``), collectives over ICI;
+    (``muse_tpu.parallel``), cross-device reductions as XLA collectives;
   * Turing/Soss PPL adapters → a JAX effect-handler PPL adapter
     (``muse_tpu.adapters.ppl``) (+ numpyro adapter when available);
-  * FFT Gaussian-random-field models with fused Pallas likelihood kernels
-    (``muse_tpu.models.grf``, ``muse_tpu.ops``).
+  * FFT Gaussian-random-field models whose likelihoods XLA fuses
+    (``muse_tpu.models.grf``).
 
 Public API parity with the reference exports (src/MuseInference.jl:30):
   SimpleMuseProblem, MuseResult, muse, muse_fit (muse!), get_J (get_J!),

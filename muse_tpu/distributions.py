@@ -321,7 +321,8 @@ class MvNormal(Distribution):
         n = jnp.shape(self.loc)[-1]
         batch = () if shape is None else tuple(shape)[:-1]
         eps = jax.random.normal(key, batch + (n,), dtype=jnp.result_type(float))
-        return self.loc + eps @ self._chol.T
+        return self.loc + jnp.matmul(eps, self._chol.T,
+                                     precision=jax.lax.Precision.HIGHEST)
 
     def log_prob(self, x):
         L = self._chol

@@ -14,7 +14,7 @@ columns when length(θ) > nsims — `pmap_over=:jac`); it ships no field
 model, so this family is the framework-native config that actually
 exercises that nθ ≫ 1 regime (BASELINE configs 4-5 extended to vector θ).
 
-TPU-first design: carried end-to-end in the isometric PACKED-SPECTRAL
+Design: carried end-to-end in the isometric PACKED-SPECTRAL
 coordinates of :mod:`muse_tpu.models.grf` (``grf_spectral_problem``) —
 every density, score, MAP solve, and the exact implicit-diff H
 preconditioner is diagonal elementwise work, the hermitian white noise is

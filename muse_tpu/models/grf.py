@@ -4,7 +4,7 @@ BASELINE.md configs 4–5: infer power-spectrum hyper-parameters (amplitude,
 optionally tilt) of a 2D Gaussian random field z from noisy observations
 x = z + n.  The reference has no field models in-repo (its docs/paper
 target CMB fields through user code); this family is the framework-native
-equivalent, designed TPU-first:
+equivalent, designed for batched accelerator execution:
 
   * **Whitened latent**: the solver's latent is the white field u ~ N(0,I),
     with z = S_θ u, S_θ = F⁻¹ diag(√C_k(θ)) F (FFT-diagonal).  The latent
@@ -18,8 +18,7 @@ equivalent, designed TPU-first:
     ``"lbfgs"`` exercises the generic path; ``"direct"`` uses the
     Fourier-diagonal closed form û = √C x̂/(σ²+C) (oracle for tests).
   * FFTs via jnp.fft (mesh-aware under GSPMD); elementwise Fourier ops
-    fuse into the surrounding kernels (optionally via the Pallas fused
-    spectrum kernel in ops/pallas_grf.py).
+    fuse into the surrounding kernels.
 
 Closed forms used as test oracles (stronger than anything the reference
 tests): marginally x̂_k ~ N(0, (C_k(θ)+σ²)·n²/2 per re/im dof), so the
@@ -40,7 +39,8 @@ from ..adapters.simple import SimpleMuseProblem
 from ..ops.cg import batched_cg
 
 __all__ = ["GrfConfig", "grf_problem", "grf_spectral_problem",
-           "grf_marginal_mle", "hermitian_white_packed"]
+           "grf_field_problem", "grf_marginal_mle", "hermitian_white_packed",
+           "pack_rfft2", "pack_weights", "spectrum_quadform_reference"]
 
 
 _HERM_COEFF_CACHE = {}
@@ -189,10 +189,11 @@ def grf_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
       * ``fft_mode="fft"``: reshard→local-FFT→reshard — the field is
         gathered per-sim for the (local) 2D FFT and re-scattered for the
         elementwise spectrum/CG updates.  Works where the backend's fft
-        op accepts GSPMD-partitioned layouts (TPU).
+        op accepts GSPMD-partitioned layouts (the GPU: ``chip_smoke.py
+        --multi`` runs it on a sims × field mesh).
       * ``fft_mode="matmul"``: the transform is the einsum DFT
         (ops/dft.py) and the grid stays ROW-SHARDED over the field axis
-        through it — GSPMD partitions the contractions with ICI
+        through it — GSPMD partitions the contractions with
         collectives, and no backend fft thunk is involved.
       * ``"auto"`` (default): ``"matmul"`` when the mesh has a field
         axis on the CPU backend (whose fft thunk rejects partitioned
@@ -426,7 +427,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     Same statistical model as :func:`grf_problem` — the observation and
     the white latent are carried in the isometric packing
     ``ṽ = pack(√w/n · rfft2(v))`` end-to-end, exploiting that x/z are
-    opaque pytrees to the solver machinery.  Consequences on TPU:
+    opaque pytrees to the solver machinery.  Consequences:
 
       * ``noise="marginal"`` (default): hermitian white draws by
         indexing (mask + row-flip, ``hermitian_white_packed``) in the
@@ -474,8 +475,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     numpy) or an already-packed vector; ``prob.x_real`` always holds the
     pixel-space data for closed-form oracles (grf_marginal_mle).
     Reference anchor: same role as grf_problem (BASELINE configs 4-5);
-    no reference analog for the representation (SURVEY §2.2's TPU-first
-    mandate).
+    no reference analog for the representation (SURVEY §2.2).
     """
     if noise not in ("marginal", "direct", "fft"):
         raise ValueError(
@@ -535,8 +535,8 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         # estimator is a functional of x alone (the truth z only seeds
         # warm starts, src/muse.jl:511-512), so in programs that drop ũ —
         # the muse iteration itself — XLA dead-code-eliminates the second
-        # draw and the sampling cost HALVES (measured 52.7 → 26 ms of the
-        # 59 ms 1024²×100 step; RNG is the dominant kernel there).
+        # draw and the sampling work HALVES (the RNG is the dominant
+        # kernel of the keyed 1024²×100 step).
         def sample_white(key):
             k1, k2 = jax.random.split(key)
             return _herm_white(k1), _herm_white(k2)
@@ -631,8 +631,7 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
         data_key = jax.random.PRNGKey(42) if data_key is None else data_key
         x_obs, _ = jax.jit(sample_x_z)(data_key, theta_true)
     elif np.ndim(x_obs) == 2:
-        # pixel-space data → packed, host-side (numpy: eager complex
-        # arithmetic is unimplemented on some TPU backends)
+        # pixel-space data → packed, host-side in float64 numpy
         xf = np.fft.rfft2(np.asarray(x_obs, np.float64))
         xf = xf * np.asarray(sqw_n, np.float64)
         x_obs = jnp.asarray(
@@ -662,18 +661,39 @@ def grf_spectral_problem(config: Optional[GrfConfig] = None, *,
     return prob
 
 
+def pack_rfft2(z: jnp.ndarray) -> jnp.ndarray:
+    """(…, n, n) real field → (…, n, 2m) packed rfft2 spectrum, real
+    parts in ``[..., :m]`` and imaginary parts in ``[..., m:]``."""
+    zf = jnp.fft.rfft2(z, axes=(-2, -1))
+    return jnp.concatenate([zf.real, zf.imag], axis=-1)
+
+
+def pack_weights(a: jnp.ndarray) -> jnp.ndarray:
+    """(n, m) per-mode weights → (n, 2m) matching the packed layout."""
+    return jnp.concatenate([a, a], axis=-1)
+
+
+def spectrum_quadform_reference(z_ri, invCw2):
+    """Σ_k w_k|ẑ_k|²/C_k per lane: (B, n, 2m) packed spectra
+    (:func:`pack_rfft2`) against (n, 2m) packed w/C
+    (:func:`pack_weights`) → (B,).  Written as an elementwise product and
+    a sum, not an einsum: XLA then fuses the value and its z-gradient
+    into one pass over the spectra, where the einsum lowers to a matrix
+    product over a materialized z² (PERF.md, bring-up findings)."""
+    return jnp.sum(z_ri * z_ri * invCw2, axis=(-2, -1))
+
+
 def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
                       sigma_noise: float = 1.0, gamma: float = 2.0,
                       k0: float = 1.0, theta_true: float = 0.0,
                       data_key=None, x_obs=None,
-                      prior_std: float = 3.0,
-                      use_pallas: bool = True) -> SimpleMuseProblem:
+                      prior_std: float = 3.0) -> SimpleMuseProblem:
     """Non-whitened GRF variant: the latent IS the field z ~ N(0, F⁻¹CF).
 
     Same marginal model for x as :func:`grf_problem` (z = S_θ u), so both
     parameterizations must deliver the same θ̂ — a parameterization-
-    invariance oracle.  The Fourier-space prior term and its θ/z gradients
-    run through the fused Pallas kernel (ops/pallas_grf.py):
+    invariance oracle.  The Fourier-space prior term is the packed
+    spectrum quadform (:func:`spectrum_quadform_reference`):
 
       log p(z|θ) = −½ [ Σ_k w_k|ẑ_k|²/C_k / n² + Σ_k w_k log C_k ] + const
 
@@ -682,10 +702,6 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
     iterative solvers, which is exactly why the primary model family uses
     the whitened parameterization (module docstring).
     """
-    from ..ops.pallas_grf import (pack_rfft2, pack_weights,
-                                  spectrum_quadform,
-                                  spectrum_quadform_reference)
-
     cfg = config or GrfConfig(n, sigma_noise, gamma, k0, False)
     n = cfg.n
     s2 = cfg.sigma_noise ** 2
@@ -697,16 +713,11 @@ def grf_field_problem(config: Optional[GrfConfig] = None, *, n: int = 256,
         x = z + cfg.sigma_noise * jax.random.normal(k2, (n, n))
         return x, z
 
-    # use_pallas=False routes the quadform through the plain-XLA
-    # einsum — the end-to-end A/B knob behind BENCHMARKS.md's
-    # "Pallas fused spectrum kernels" table
-    _quadform = (spectrum_quadform if use_pallas
-                 else spectrum_quadform_reference)
-
     def log_like(x, z, theta):
         C = cfg.spectrum(theta)
         invCw2 = pack_weights(cfg.herm_weight / C)
-        quad = _quadform(pack_rfft2(z)[None], invCw2)[0] / n ** 2
+        quad = spectrum_quadform_reference(pack_rfft2(z)[None],
+                                           invCw2)[0] / n ** 2
         logdet = jnp.sum(cfg.herm_weight * jnp.log(C))
         r = x - z
         return -0.5 * (jnp.sum(r * r) / s2 + quad + logdet)

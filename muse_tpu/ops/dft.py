@@ -9,8 +9,7 @@ rejects outright (``fft_thunk.cc:167 RET_CHECK
 IsMonotonicWithDim0Major`` — reproduced on jax 0.9).  Expressed as two
 complex contractions, the same transform is just einsums — partitionable
 by GSPMD like any matmul (collectives over the contracted/sharded axis),
-accepted on every backend, and on TPU it rides the MXU (the 4-step-FFT
-experiment in BENCHMARKS.md showed matmul DFT ties XLA's FFT at 1024²).
+and accepted on every backend.
 
 Cost: O(n³) per field vs O(n² log n) — the right trade at small/medium n
 or when the alternative is "does not run at all".  The GRF model family
@@ -33,10 +32,16 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["plan_dft2", "Dft2Plan"]
+
+# full-f32 products: the default precision lets a GPU run these
+# contractions in TF32 (about three significant digits), far coarser than
+# the jnp.fft path this transform stands in for
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class Dft2Plan:
@@ -66,13 +71,15 @@ class Dft2Plan:
 
     def rfft2(self, U):
         """(…, n, n) real → (…, n, n_r) complex, = jnp.fft.rfft2(U)."""
-        V = jnp.einsum("...ab,kb->...ak", U.astype(jnp.complex64), self.R)
-        return jnp.einsum("ka,...ab->...kb", self.F, V)
+        V = jnp.einsum("...ab,kb->...ak", U.astype(jnp.complex64), self.R,
+                       precision=_HIGHEST)
+        return jnp.einsum("ka,...ab->...kb", self.F, V, precision=_HIGHEST)
 
     def irfft2(self, V):
         """(…, n, n_r) hermitian-consistent complex → (…, n, n) real."""
-        W = jnp.einsum("...ak,kb->...ab", V, self.Ri)
-        return jnp.einsum("ka,...ab->...kb", self.Fi, W).real
+        W = jnp.einsum("...ak,kb->...ab", V, self.Ri, precision=_HIGHEST)
+        return jnp.einsum("ka,...ab->...kb", self.Fi, W,
+                          precision=_HIGHEST).real
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,11 +3,11 @@
 In the reference, >95% of wall-clock is the per-simulation latent MAP solve:
 an Optim.jl L-BFGS over z with AD gradients, run independently per
 simulation (``src/interface.jl:162-166``, call site ``src/muse.jl:169-171``).
-The TPU-native design runs *all* simulations' solves in lockstep as one
+This design runs *all* simulations' solves in lockstep as one
 batched optimizer: a single ``lax.while_loop`` advancing a ``(B, N)`` state,
 with per-lane convergence masks so finished lanes freeze while the rest
-continue.  This keeps every step a large fused batched op (VPU/MXU
-friendly, no host round-trips, no dynamic shapes) and lets the sims axis
+continue.  This keeps every step a large fused batched op (no host
+round-trips, no dynamic shapes) and lets the sims axis
 shard over the device mesh.
 
 Semantics parity with the reference:
@@ -126,9 +126,9 @@ def _two_loop_chrono(g, S, Y, rho, valid, head, m):
     has the overwritten slot's ``valid`` cleared (never left holding an
     m-stale pair), which is what keeps ``(head-1) % m`` the true newest
     for the γ scaling.  Used by ops/varpro.py, whose history rows are
-    field-sized (the per-lane-gather variant measured 41% slower on the
-    256² lensing iteration); :func:`batched_lbfgs` itself keeps the
-    exact per-lane head."""
+    field-sized (a per-lane head would gather a field-sized row per lane
+    and slot every step); :func:`batched_lbfgs` itself keeps the exact
+    per-lane head."""
     B = g.shape[0]
 
     def bwd(j, carry):

@@ -11,8 +11,8 @@ field models (lensing) that is the wrong algorithm twice over:
     from secant pairs crawl through such regions (measured: 150–240
     L-BFGS iterations per cold-start solve);
   * the L-BFGS two-loop touches 2·m·B·N floats of history per iteration
-    (1.4 GB/step HBM traffic at m=10, B=65, 1024² latents) — pure
-    bandwidth waste on TPU.
+    (1.4 GB/step of device-memory traffic at m=10, B=65, 1024² latents)
+    — bandwidth spent on no new curvature information.
 
 Trust-region Newton-CG fixes both: curvature comes from exact
 Hessian-vector products (one ``jax.jvp`` over the gradient — a fused

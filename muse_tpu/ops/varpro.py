@@ -107,12 +107,12 @@ def batched_varpro(
         inner products of both spaces.  When given, the inner PCG uses
         these instead of ``jax.linearize``/``jax.linear_transpose`` —
         a performance/hardening hook (hand-fused operator pairs, no
-        linearize machinery in the compiled program).  Note it is NOT a
-        complete workaround for the TPU backend's batch-width
-        value-corruption family (models/lensing.py docstring): measured
-        at 1024², the explicit adjoint fixes width 13 but width 17
-        still corrupts — the trigger is the FFT-chain program structure
-        inside ``lax.while_loop``, not the transpose construct alone.
+        linearize machinery in the compiled program).  On the accelerator
+        this engine was first built on it was NOT a complete workaround
+        for that compiler's batch-width value-corruption family
+        (models/lensing.py docstring): at 1024² the explicit adjoint
+        fixed width 13 but width 17 still corrupted — the trigger was
+        the FFT-chain program structure inside ``lax.while_loop``.
         Correctness contract: ⟨G z, w⟩ = ⟨z, Gt w⟩ exactly — test with
         the adjoint-identity check in tests/test_newton_varpro.py.
     """
@@ -306,10 +306,9 @@ def batched_varpro(
         # per-lane gathers in the two-loop.  Tradeoff vs the per-lane
         # head: a skip costs the lane its oldest pair one step early
         # (effective memory expires by global age).  Chosen here because
-        # this loop's state is field-sized — the per-lane-gather variant
-        # measured a 41% regression on the 256² lensing iteration
-        # (0.229 → 0.324 s/iter, BENCHMARKS.md) — while skips are rare
-        # for the smooth reduced objective.  ops/lbfgs.py (small-N
+        # this loop's state is field-sized — a per-lane gather reads a
+        # field-sized row per lane and slot every step — while skips are
+        # rare for the smooth reduced objective.  ops/lbfgs.py (small-N
         # problems) keeps the exact per-lane semantics.
         s = U1 - st.U
         y = g1 - st.g

@@ -2,11 +2,13 @@
 
 The reference's only parallelism is simulation-level data parallelism via
 Julia Distributed worker pools (``pool`` kwarg, src/muse.jl:124; scatter/
-gather over TCP, SURVEY §2.2-2.3).  The TPU-native replacement is a
+gather over TCP, SURVEY §2.2-2.3).  The replacement here is a
 ``jax.sharding.Mesh``: batched per-sim arrays (keys, warm starts, sampled
 data) are placed with a NamedSharding over a ``"sims"`` axis, and every
 compiled step partitions automatically under jit — cross-sim reductions
-ride ICI as XLA collectives rather than TCP gathers.
+become XLA collectives (NCCL over NVLink on GPUs) rather than TCP
+gathers.  Every device reaches every other at the same rate, so the mesh
+is a plain reshape of the device list.
 
 Beyond the reference (SURVEY §2.2): a second ``"field"`` axis can shard the
 flattened latent z *within* each MAP solve for large-field problems, since

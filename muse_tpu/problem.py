@@ -1,6 +1,6 @@
 """The MUSE problem interface — the L3 "ops/model" layer.
 
-TPU-native re-design of the reference's ``AbstractMuseProblem`` and its 9
+A JAX re-design of the reference's ``AbstractMuseProblem`` and its 9
 overridable functions (``src/interface.jl``):
 
   reference (Julia, dispatch-based)         here (JAX, pure functions)
@@ -116,7 +116,7 @@ class MuseProblem:
     # instead set ``custom_zhat`` to a callable
     # ``(x_batched, z0_flat, theta_flat, atol) -> (zhat_flat, aux_dict)``
     # operating on the whole sims batch — the analog of overriding ẑ_at_θ
-    # (src/interface.jl:162 note), but batched for TPU lockstep execution.
+    # (src/interface.jl:162 note), but batched for lockstep execution.
     custom_zhat = None
 
     # Optional analytic θ-gradient of log_like — the analog of a problem
@@ -134,12 +134,12 @@ class MuseProblem:
     # silently trusting the odd-lane rule on an untested backend.
     fft_grid = None
 
-    # Optional CRN white-noise split of the forward sampler — a TPU-first
-    # optimization with no reference analog (the reference re-runs each
-    # sim's full sampler at every outer iteration with the same seed,
-    # src/muse.jl:169-170; under common random numbers the θ-independent
-    # randomness is ITERATION-INVARIANT, so it can be drawn once and
-    # reused).  A problem that can factor its sampler as
+    # Optional CRN white-noise split of the forward sampler — a
+    # batched-execution optimization with no reference analog (the
+    # reference re-runs each sim's full sampler at every outer iteration
+    # with the same seed, src/muse.jl:169-170; under common random
+    # numbers the θ-independent randomness is ITERATION-INVARIANT, so it
+    # can be drawn once and reused).  A problem that can factor its sampler as
     #
     #   sample_x_z(key, θ) ≡ x_of_white(sample_white(key), θ)
     #

@@ -2,15 +2,17 @@
 
 Why this exists: the reference gets value integrity for free from the
 Julia runtime — when ``src/muse.jl:169-176`` gathers per-sim MAP results
-it can trust the numbers.  This platform demonstrably cannot: XLA's TPU
-backend has been observed to VALUE-CORRUPT specific compiled programs at
-specific batch widths (identical per-lane inputs produced ‖ẑ‖ ~ 5×10⁵
-vs 80 and objective 10¹¹ vs 5×10⁵ at lane counts 13/17 of the 1024²
-lensing VarPro while width 5 was exact; a separate fused batched-FFT
-family silently biased θ̂ by ~50σ — ``muse_tpu/utils/fft_check.py``).
-Structural probes cannot see this: ``fused_fft_ok(1024, 17)`` passes
-while the full while_loop program corrupts, because the trigger is the
-compiled program's overall structure, not any single op.
+it can trust the numbers.  An XLA backend need not give that: on the
+accelerator this engine was first built on, XLA VALUE-CORRUPTED specific
+compiled programs at specific batch widths (identical per-lane inputs
+produced ‖ẑ‖ ~ 5×10⁵ vs 80 and objective 10¹¹ vs 5×10⁵ at lane counts
+13/17 of the 1024² lensing VarPro while width 5 was exact; a separate
+fused batched-FFT family silently biased θ̂ by ~50σ —
+``muse_tpu/utils/fft_check.py``).  Structural probes cannot see this:
+``fused_fft_ok(1024, 17)`` passed while the full while_loop program
+corrupted, because the trigger was the compiled program's overall
+structure, not any single op.  Whether the GPU needs the guard on by
+default is open (ROADMAP D1(b)); ``chip_smoke.py`` prints its verdicts.
 
 So the guard is *semantic*, not structural: after a batched MAP chunk
 completes, re-solve 1–2 sampled lanes with an INDEPENDENTLY COMPILED
@@ -39,8 +41,9 @@ the muse/get_J/get_H flows of one fit share routing decisions.
 
 Enabled by ``certify="auto"`` (the default on ``muse_fit``/``get_J``/
 ``get_H``): on for problems that declare ``fft_grid`` (the field models,
-where the corruption family lives) on non-CPU backends; ``True`` forces
-it anywhere (used by the injected-corruption tests), ``False`` disables.
+where the corruption families were seen) on non-CPU backends; ``True``
+forces it anywhere (used by the injected-corruption tests), ``False``
+disables.
 """
 
 from __future__ import annotations
@@ -123,6 +126,7 @@ class ChunkCertifier:
         self._bad = set()          # {(kind, width)} failed certification
         self._calls = {}           # (kind, width) -> chunk-call count
         self.events = []           # audit log of failed probes
+        self.verdicts = []         # (kind, width, passed) of every probe
 
     # ---------------- single-lane reference programs ---------------- #
     # Each is its own jit → its own XLA program, compiled independently
@@ -251,6 +255,7 @@ class ChunkCertifier:
                    or fb - fr > self.rtol * scale
                    or abs(nb - nr) > self.norm_rtol * (nr + 1.0))
             if bad:
+                self.verdicts.append((kind, width, False))
                 self._bad.add((kind, width))
                 ev = {"kind": kind, "width": width, "lane": int(i),
                       "f_batch": fb, "f_ref": fr,
@@ -262,7 +267,7 @@ class ChunkCertifier:
                     f"lane {i} re-solved with the independently compiled "
                     f"B=1 program gives objective {fr:.6g} / ‖ẑ‖ "
                     f"{nr:.6g}, but the batched program produced "
-                    f"{fb:.6g} / {nb:.6g}. This is the platform "
+                    f"{fb:.6g} / {nb:.6g}. This is the compiler "
                     "batch-width value-corruption family (see "
                     "muse_tpu/solver/certify.py). The affected chunk is "
                     "re-run lane-by-lane with the certified program and "
@@ -274,6 +279,7 @@ class ChunkCertifier:
                     raise CertificationError(msg)
                 warnings.warn(msg)
                 return False
+        self.verdicts.append((kind, width, True))
         return True
 
     # ---------------- lane-wise fallback runner ---------------- #

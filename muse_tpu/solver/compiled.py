@@ -1,4 +1,4 @@
-"""Compiled problem: the jitted TPU execution path behind the MUSE solver.
+"""Compiled problem: the jitted device execution path behind the MUSE solver.
 
 This is the L5-runtime ↔ L3-interface bridge.  Where the reference threads
 dynamic dispatch + Distributed ``pmap`` through per-sim closures
@@ -21,7 +21,8 @@ Simulations are lane 0..B-1 of every batched array; the observed data ride
 as lane 0 in ``muse_step`` (matching ``[nothing; split_rng(rng, nsims)]``,
 src/muse.jl:169).  On a mesh, the lane axis is sharded (data-parallel over
 sims) by placing inputs with a NamedSharding — XLA then partitions the
-whole traced computation and rides ICI for any cross-sim reduction.
+whole traced computation and emits collectives for any cross-sim
+reduction.
 """
 
 from __future__ import annotations
@@ -58,13 +59,11 @@ class CompiledProblem:
             warnings.warn(
                 "dtype=float64 requested but jax_enable_x64 is off — "
                 "arrays will silently be float32. Enable x64 with "
-                "jax.config.update('jax_enable_x64', True) (CPU only; "
-                "TPUs emulate f64 slowly — prefer float32 on device with "
-                "the host-side float64 outer loop, which is the default).")
+                "jax.config.update('jax_enable_x64', True).")
 
         # Discover z's pytree structure / flat size from one example draw
-        # (jitted: eager complex arithmetic is unimplemented on some TPU
-        # backends, and user models freely use it).
+        # (jitted, so a model's constructor-time math runs as one device
+        # program rather than op by op).
         x0, z0 = jax.jit(lambda k, t: problem.sample_x_z(
             k, spec.unflatten(t)))(jax.random.PRNGKey(0),
                                    jnp.asarray(theta0_flat))
@@ -98,13 +97,14 @@ class CompiledProblem:
         """Batched forward sampling with a fusion barrier on the outputs.
 
         The barrier forces the sampled fields to materialize before any
-        consumer: without it, XLA's TPU backend fuses the sampler's
-        irfft2 into downstream rfft2 consumers and, at large batch
-        (observed at B=128×1024², not at B=17), MIScompiles the chain —
-        every per-sim score came out scaled by ×0.903, biasing θ̂ by
-        ~50σ.  Verified: identical graph with the intermediate
-        materialized is exact.  One HBM round-trip of x, which the MAP
-        solve needs resident anyway.
+        consumer.  On the accelerator this engine was first built on,
+        XLA fused the sampler's irfft2 into downstream rfft2 consumers
+        and, at large batch (B=128×1024², not B=17), MIScompiled the
+        chain — every per-sim score came out scaled by ×0.903, biasing θ̂
+        by ~50σ; the same graph with the intermediate materialized was
+        exact.  Cost: one device-memory round-trip of x, which the MAP
+        solve needs resident anyway.  Whether the GPU needs it is open
+        (ROADMAP D1(c)).
         """
         xs, Zs = jax.vmap(self._sample_flat, in_axes=(0, None))(keys,
                                                                 th_flat)
@@ -196,7 +196,7 @@ class CompiledProblem:
             # sharding.  ``lane_ids`` carries global lane numbers so the
             # solver can process the lane axis in memory-bounded chunks
             # (src/muse.jl's whole-sims pmap has no such need; a 513-lane
-            # 1024² batch exceeds one chip's HBM).
+            # 1024² batch can exceed one device's memory).
             xs_all, _ = self._sample_batch(keys_all, th)
             return self._step_from_xs(xs_all, th, th_t, Z_prev, lane_ids,
                                       atol)
@@ -268,7 +268,7 @@ class CompiledProblem:
         with the SAME key, MAP at fiducial θ₀ warm-started from the sim's
         fiducial fit, θ-gradient at fiducial θ₀ (src/muse.jl:426-433 +
         src/util.jl:12-21).  All nsims·nθ·2 solves run as ONE lockstep
-        batch — the TPU-native answer to the reference's nested
+        batch — the lockstep answer to the reference's nested
         pmap_over ∈ {:sims, :jac} pool routing (src/muse.jl:329-333).
 
         Returns g of shape (nsims, nθ, 2, nθ); the solver host-side forms
@@ -390,7 +390,10 @@ class CompiledProblem:
                 return y
 
             Ainv_dFdth1 = jax.vmap(solve_col, in_axes=1, out_axes=1)(dFdth1)
-            H2 = -(dFdth.T @ Ainv_dFdth1)
+            # a contraction over all nz latent dims: HIGHEST keeps it in
+            # full f32 where the default may run it in TF32 on a GPU
+            H2 = -jnp.matmul(dFdth.T, Ainv_dFdth1,
+                             precision=jax.lax.Precision.HIGHEST)
             # CG residual diagnostic (‖A y − b‖ per column) — the analog of
             # the stored cg convergence histories (src/muse.jl:405).
             resid = jnp.linalg.norm(
@@ -414,7 +417,7 @@ class CompiledProblem:
     def certifier(self):
         """Shared :class:`~muse_tpu.solver.certify.ChunkCertifier` so the
         muse/get_J/get_H flows of one fit share verdicts and width
-        routing (the platform's batch-width value-corruption guard)."""
+        routing (the batch-width value-corruption guard)."""
         from .certify import ChunkCertifier
         return ChunkCertifier(self)
 

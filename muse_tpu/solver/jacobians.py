@@ -70,8 +70,8 @@ def _key_chunks(keys, max_batch, mesh, fft_n=None, certifier=None,
 
     n = keys.shape[0]
     step = n if max_batch is None else max_batch
-    # odd *per-device* padded width: even batched-FFT lane counts are
-    # unsafe on the TPU backend (muse_tpu/utils/fft_check.py); under a
+    # odd *per-device* padded width: even batched-FFT lane counts were
+    # miscompiled on the first accelerator (utils/fft_check.py); under a
     # mesh the width is a device-count multiple with odd shards.
     # Routing is re-checked before every chunk so a failed verdict
     # MID-pass moves the remaining chunks to the fallback width instead
@@ -347,10 +347,9 @@ def get_J(
     Scores are appended to ``result.gs`` as each device chunk completes,
     and ``checkpoint_file`` (beyond-reference; the muse_fit checkpoint
     analog, src/muse.jl:234) saves the result after every chunk — a
-    flagship-scale J killed mid-run (the platform's multi-minute program
-    kill) resumes at chunk granularity via ``load_result`` + the same
-    call.  CRN prefix identity makes the resume exact as long as no sims
-    were dropped by ``skip_errors``.
+    flagship-scale J killed mid-run resumes at chunk granularity via
+    ``load_result`` + the same call.  CRN prefix identity makes the
+    resume exact as long as no sims were dropped by ``skip_errors``.
 
     ``problem`` may also be a PPL model function with ``observed=``
     (src/turing.jl:248-256 overload analog)."""

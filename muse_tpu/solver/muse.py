@@ -1,12 +1,12 @@
 """The MUSE solver — outer quasi-Newton root-finder on the MUSE score.
 
 Port of ``muse``/``muse!`` (reference ``src/muse.jl:61-250``), re-designed
-for the TPU execution model: all per-simulation work for an iteration is a
-single compiled device step (``CompiledProblem.muse_step``); the remaining
-per-iteration math — score assembly, H⁻¹ estimation (sims-variance or
-Broyden replay), damped Newton step, convergence test — is tiny dense
-linear algebra over θ, done on the host in float64 exactly as the reference
-does it on the master process.
+for batched accelerator execution: all per-simulation work for an
+iteration is a single compiled device step (``CompiledProblem.muse_step``);
+the remaining per-iteration math — score assembly, H⁻¹ estimation
+(sims-variance or Broyden replay), damped Newton step, convergence test —
+is tiny dense linear algebra over θ, done on the host in float64 exactly
+as the reference does it on the master process.
 
 Feature parity checklist vs ``muse!``:
   * α step size, constant or schedule ``i -> α``        (src/muse.jl:145-149)
@@ -127,7 +127,7 @@ def muse_fit(
       certify      — "auto" (default) | True | False: runtime
                      value-integrity certification of each batched MAP
                      chunk against an independently compiled B=1 program
-                     (solver/certify.py — the guard for the platform's
+                     (solver/certify.py — the guard for the compiler
                      batch-width value-corruption family).  "auto" turns
                      it on for field models (``fft_grid`` declared) on
                      non-CPU backends.  On a failed verdict the chunk is
@@ -188,9 +188,9 @@ def muse_fit(
     # memory-bounded lane chunks: each chunk is padded to a uniform size
     # (one compiled shape) and carries its global lane ids so the data
     # lane is recognized wherever it falls.  The padded width keeps the
-    # *per-device* lane count ODD — many even batch sizes hit a
-    # miscompiled fused batched-FFT on the TPU backend (silent ~30%
-    # power deficit; see muse_tpu/utils/fft_check.py).  With a mesh the
+    # *per-device* lane count ODD — on the first accelerator many even
+    # batch sizes hit a miscompiled fused batched-FFT (silent ~30% power
+    # deficit; see muse_tpu/utils/fft_check.py).  With a mesh the
     # width is additionally a multiple of the sims-axis device count so
     # mesh.shard_sims adds no further (even-making) padding.
     from ..utils.fft_check import (pad_lanes_to, safe_lane_count,

@@ -5,7 +5,7 @@ The reference uses ComponentArrays.jl to give θ both flat-vector semantics
 access (reference ``src/util.jl:32-53``, ``standardizeθ`` at
 ``src/interface.jl:134`` / ``src/turing.jl:188``).
 
-The TPU-native equivalent is a :class:`ThetaSpec` built from an example θ
+The equivalent here is a :class:`ThetaSpec` built from an example θ
 PyTree: it ravels any user-facing θ (scalar, dict, NamedTuple-like mapping,
 or array PyTree) into a flat ``jnp`` vector for the solver, and unravels
 solver output back into the user's structure.  All solver math operates on

@@ -19,10 +19,6 @@ import json
 import os
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -32,6 +28,7 @@ import numpy as np
 
 from muse_tpu import MuseResult, get_H, get_J, muse_fit
 from muse_tpu.models.lensing import lensing_problem
+from muse_tpu.utils.compile_cache import enable_compile_cache
 
 
 def run_one(rep, n, nsims, theta_true, theta_rtol=3e-4, maxsteps=30,
@@ -91,6 +88,7 @@ def main():
     # the true per-sim optimum), tightening this moves mean theta_hat
     ap.add_argument("--grad-z-atol", type=float, default=3e-3)
     args = ap.parse_args()
+    enable_compile_cache()
 
     rows = []
     for rep in range(args.rep_start, args.rep_start + args.reps):

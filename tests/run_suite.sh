@@ -18,12 +18,13 @@ cd "$(dirname "$0")/.."
 fail=0
 
 GROUP1="tests/test_adapters_gating.py tests/test_bandpower.py \
-        tests/test_calibration.py tests/test_certify.py \
+        tests/test_calibration.py tests/test_certify.py tests/test_chip_smoke.py \
         tests/test_distributions.py tests/test_docs_execute.py"
 GROUP2="tests/test_fft_check.py tests/test_grf.py tests/test_lbfgs.py \
+        tests/test_precision.py \
         tests/test_lensing.py tests/test_mesh.py"
 GROUP3="tests/test_muse_funnel.py tests/test_newton_varpro.py \
-        tests/test_numpyro_adapter.py tests/test_pallas_grf.py \
+        tests/test_numpyro_adapter.py tests/test_grf_field.py \
         tests/test_ppl.py tests/test_theta_transforms.py"
 
 # guard: every tests/test_*.py must appear in a group — a new test file

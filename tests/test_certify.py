@@ -1,9 +1,9 @@
 """Value-integrity certification tests (muse_tpu/solver/certify.py).
 
-The platform's TPU backend was observed to value-corrupt specific
-compiled programs at specific batch widths (see certify.py's module
-docstring) — a failure family the reference never faces because Julia
-doesn't miscompile (its results at src/muse.jl:169-176 are trusted
+XLA was observed to value-corrupt specific compiled programs at specific
+batch widths on the accelerator this engine was first built on (see
+certify.py's module docstring) — a failure family the reference never
+faces because Julia doesn't miscompile (its results at src/muse.jl:169-176 are trusted
 implicitly).  These tests inject that failure mode deliberately: a
 ``custom_zhat`` that is exact at batch width 1 but corrupts its output
 whenever the compiled batch width exceeds 1 (the trace-time analog of a
@@ -232,7 +232,7 @@ def test_certify_auto_semantics(monkeypatch):
     # field-scale custom_zhat problems that declare NO fft_grid (the
     # spectral-GRF/bandpower flagship bench paths) — and stays off for
     # small-latent custom solvers and for plain-L-BFGS problems
-    monkeypatch.setattr(ct.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(ct.jax, "default_backend", lambda: "gpu")
     p.fft_grid = None
     assert p.custom_zhat is not None
     assert ct.certify_enabled("auto", p, 7) is False              # no nz

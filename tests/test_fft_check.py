@@ -14,8 +14,8 @@ def test_safe_lane_count_is_odd():
 
 
 def test_safe_lane_count_mesh_rule():
-    """Per-device shards must be odd under a mesh — the family that is
-    broken on the measured TPU backend is exactly even per-device widths
+    """Per-device shards must be odd under a mesh — the family that was
+    broken on the first accelerator is exactly even per-device widths
     (e.g. 128/8 = 16)."""
     for b in (1, 7, 8, 16, 100, 128):
         for shards in (1, 2, 4, 8):
@@ -26,8 +26,8 @@ def test_safe_lane_count_mesh_rule():
 
 
 def test_fused_fft_ok_on_cpu():
-    """The CPU backend has no such bug; the checker must report OK (and
-    on TPU this same call is how a platform is validated)."""
+    """The CPU backend has no such bug; the checker must report OK (on
+    an accelerator this same call is how a platform is validated)."""
     assert fused_fft_ok(64, 16)
     assert fused_fft_ok(64, 17)
 

@@ -226,7 +226,7 @@ def test_explicit_budgets_respected_at_large_n():
     # Newton-CG / polish budget does not — the dict must report both
     assert p2.solver_budgets["varpro_inner_cg_maxiter"] == 35
     assert p2.solver_budgets["gn_cg_maxiter"] == 50
-    # solver="auto" keeps VarPro on non-TPU backends at flagship size
-    # (the XLA value-corruption reroute is TPU-measured only)
+    # solver="auto" keeps VarPro at flagship size (value corruption is
+    # handled by runtime certification, not a build-time reroute)
     p3 = lensing_problem(n=1024, x_obs=np.zeros((1024, 1024), np.float32))
     assert p3.solver_budgets["solver"] == "varpro"

@@ -396,9 +396,9 @@ def test_profile_dir_writes_trace(prob, tmp_path):
 
 
 def test_get_J_chunk_checkpoint_resume(prob, tmp_path):
-    """A flagship-scale J killed mid-run (the platform's multi-minute
-    program kill) must resume from the per-chunk checkpoint and finish
-    bit-identically to an uninterrupted run (CRN prefix identity)."""
+    """A flagship-scale J killed mid-run must resume from the per-chunk
+    checkpoint and finish bit-identically to an uninterrupted run (CRN
+    prefix identity)."""
     from muse_tpu.result import load_result
     from muse_tpu.solver.compiled import CompiledProblem
     from muse_tpu.theta import ThetaSpec
@@ -416,12 +416,12 @@ def test_get_J_chunk_checkpoint_resume(prob, tmp_path):
     def dying(*a, **k):
         calls["n"] += 1
         if calls["n"] == 2:
-            raise RuntimeError("simulated tunnel kill")
+            raise RuntimeError("simulated process kill")
         return real(*a, **k)
 
     comp.j_sims = dying
     r1 = MuseResult()
-    with pytest.raises(RuntimeError, match="tunnel kill"):
+    with pytest.raises(RuntimeError, match="process kill"):
         get_J(r1, prob, 0.0, key=key, nsims=12, max_batch=5,
               compiled=comp, checkpoint_file=f)
 
@@ -453,12 +453,12 @@ def test_get_H_fd_chunk_checkpoint_resume(prob, tmp_path):
     def dying(*a, **k):
         calls["n"] += 1
         if calls["n"] == 2:
-            raise RuntimeError("simulated tunnel kill")
+            raise RuntimeError("simulated process kill")
         return real(*a, **k)
 
     comp.h_fd = dying
     r1 = MuseResult()
-    with pytest.raises(RuntimeError, match="tunnel kill"):
+    with pytest.raises(RuntimeError, match="process kill"):
         get_H(r1, prob, 0.0, key=key, nsims=6, max_batch=3, step=0.05,
               compiled=comp, checkpoint_file=f)
     r2 = load_result(f)

@@ -214,9 +214,9 @@ def test_varpro_warm_start_cuts_iterations():
 class TestLensingExplicitAdjoint:
     """The hand-written (G, Gᵀ) pair behind lensing's VarPro inner CG
     (models/lensing.py lin_ops) must agree EXACTLY with the AD-derived
-    linearization it replaces.  The pair exists because the TPU backend
-    value-corrupts the transpose-of-irfft2 program inside lax.while_loop
-    at specific batch widths (BENCHMARKS.md round-3 finding) — so the
+    linearization it replaces.  The pair exists because the compiler of
+    the first accelerator value-corrupted the transpose-of-irfft2
+    program inside lax.while_loop at specific batch widths — so the
     oracle here is the AD path on CPU, where linear_transpose is exact.
     """
 
